@@ -1,10 +1,10 @@
-"""gme_tpu — a TPU-native global-motion-estimation framework.
+"""gme_tpu — a global-motion-estimation framework for accelerators.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 ``Samaretas/global-motion-estimation`` project (block-based motion estimation,
-hierarchical affine global-motion fitting, motion compensation, PSNR scoring),
-built TPU-first: batched static-shape tensor programs, Pallas kernels for the
-hot block-matching ops, and `jax.sharding` meshes for data/spatial parallelism.
+hierarchical affine global-motion fitting, motion compensation, PSNR scoring):
+batched static-shape tensor programs that run on an NVIDIA GPU (or the CPU),
+and `jax.sharding` meshes for data/spatial parallelism.
 
 Public API (mirrors the reference's behavioural surface; citations to the
 reference sources are in each symbol's docstring):

@@ -35,8 +35,7 @@ def _parse_mesh(spec: str):
 
 
 def _apply_platform(args) -> None:
-    """Pin the JAX platform before the backend initialises.  Needed because
-    device plugins may ignore the JAX_PLATFORMS environment variable."""
+    """Pin the JAX platform (`--platform`) before the backend initialises."""
     if getattr(args, "platform", None):
         import jax
 
@@ -74,7 +73,7 @@ def _cmd_results(args) -> None:
             args.path, out_root=args.out, cfg=cfg,
             num_processes=args.num_processes, process_id=args.process_id,
             coordinator_address=args.coordinator, gop_size=args.gop_size,
-            max_pairs=args.max_pairs,
+            max_pairs=args.max_pairs, local_device_ids=args.local_device_ids,
         )
     else:
         summary = process_video(
@@ -177,7 +176,7 @@ def _cmd_stats(args) -> None:
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
-        prog="gme_tpu", description="TPU-native global motion estimation"
+        prog="gme_tpu", description="global motion estimation on an accelerator"
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -222,6 +221,10 @@ def main(argv=None) -> None:
     p.add_argument("--coordinator", default=None,
                    help="jax.distributed coordinator host:port")
     p.add_argument("--gop-size", type=int, default=16)
+    p.add_argument("--local-device-ids", default=None,
+                   type=lambda s: [int(t) for t in s.split(",")],
+                   help="cards this process uses, e.g. 2 (one process per "
+                        "card on a multi-card host)")
     p.set_defaults(func=_cmd_results)
 
     p = sub.add_parser("bbme", help="motion field between two frames")

@@ -49,14 +49,14 @@ class BBMEConfig:
     pnorm_distance: int = MSE
     # Upper bound on data-dependent search iterations (diamond / 2D-log large
     # patterns).  The reference uses unbounded `while` loops
-    # (bbme.py:494, bbme.py:381); on TPU we run a lockstep `lax.while_loop`
+    # (bbme.py:494, bbme.py:381); here they are lockstep `lax.while_loop`s
     # with this static safety bound.  Positions move by <=2 px/iteration and
     # are clamped to the frame, so max(H, W) iterations always suffices; the
     # bound exists to guarantee termination of compiled code.
     max_search_iters: int = 4096
-    # Candidate-evaluation engine: "gather" (exact block gathers — fast on
-    # CPU), "volume" (precomputed shift+box-sum cost volume — the TPU fast
-    # path), or "auto" (volume on TPU, gather elsewhere).
+    # Candidate-evaluation engine: "gather" (exact block gathers), "volume"
+    # (precomputed shift+box-sum cost volume; spatial sharding always uses
+    # it), or "auto" (gather on every backend).
     search_impl: str = "auto"
     # Half-width of the precomputed cost volume for impl="volume" walks.
     volume_radius: int = 32
@@ -134,7 +134,7 @@ class MeshConfig:
     """Device-mesh layout for the parallel pipeline.
 
     The reference is single-threaded (SURVEY.md §2.2); parallelism here is
-    TPU-native: a (data, space) mesh where independent frame pairs shard over
+    a (data, space) mesh where independent frame pairs shard over
     the `data` axis and frame rows shard over the `space` axis (with
     search-window halo exchange for BBME).
     """

@@ -12,7 +12,7 @@ Python loops, no smooth interpolation — and wildly mismatched parameter
 scales (the perspective terms a6/a7 move pixels by ~coordinate², the linear
 terms by ~coordinate, the offsets by 1).
 
-This module is the working TPU-native realisation of that feature:
+This module is the working JAX realisation of that feature:
 
 - the legacy 8-parameter **perspective model** of the reference prototype
   (gd tests/motion.py:51-63: x' = (a0 + a2*x + a3*y) / (a6*x + a7*y + 1),

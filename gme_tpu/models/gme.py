@@ -1,6 +1,6 @@
 """Hierarchical affine global-motion estimation — the flagship model.
 
-TPU-native re-design of reference motion.py:109-136 (coarse-to-fine robust
+Re-design of reference motion.py:109-136 (coarse-to-fine robust
 fit) and the results-pipeline per-pair step (reference results.py:41-112) as
 one jit-compilable, vmap-able function of two frames.
 

@@ -1,7 +1,7 @@
 """Affine global-motion model: dense field generation + weighted least-squares
 fit with robust outlier rejection.
 
-TPU-native re-design of reference motion.py:33-286.  The reference
+Re-design of reference motion.py:33-286.  The reference
 accumulates 3x3/3x1 normal equations in a per-cell Python loop
 (motion.py:55-64); here the whole fit is one masked einsum over the cell
 grid followed by a 3x3 solve — and the einsum partials are exactly the
@@ -238,8 +238,9 @@ def _fit_normal_equations_f32(
     A = jnp.stack([ones, xc, yc], axis=-1)  # (nbh, nbw, 3)
 
     # These two reductions are the cross-device psum points when cells shard.
-    # Precision.HIGHEST forces true-f32 accumulation (the default matmul
-    # precision on TPU is bf16, far too coarse for a normal-equation solve).
+    # Precision.HIGHEST forces true-f32 products (a GPU's default f32
+    # matmul is TF32, ~3 decimal digits — far too coarse for a normal-
+    # equation solve).
     hi = lax.Precision.HIGHEST
     G = jnp.einsum("ija,ijb,ij->ab", A, A, mw, precision=hi)  # Σ w AᵀA  (3,3)
     d = motion_field.astype(jnp.float32)

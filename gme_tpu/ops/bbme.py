@@ -1,4 +1,4 @@
-"""Block-based motion estimation (BBME) as TPU-native XLA programs.
+"""Block-based motion estimation (BBME) as batched XLA programs.
 
 Re-design of the reference's per-block Python loops (reference bbme.py) into
 batched, static-shape tensor programs:
@@ -17,25 +17,27 @@ batched, static-shape tensor programs:
 
 Two candidate-evaluation engines back the data-dependent searches:
 
-- impl="gather": anchor-vs-candidate DFD via dynamic block gathers.  Exact
-  for any wander distance, but XLA lowers the gathers element-wise on TPU
-  (~70 M elem/s measured) — use on CPU or for verification.
-- impl="volume" (TPU default): precompute the DFD for EVERY offset in
-  [-R, R]^2 as a shift+box-sum cost volume (pure VPU work, no gathers), then
-  the walks only do scalar lookups into the volume.  DFD values are exact
-  f32 integers either way, so results are bit-identical as long as a walk
-  stays within radius R; R is derived exactly for three-step (its total
-  displacement is statically bounded) and configurable for diamond/2D-log
-  (walks past R read +inf and stop — practically unreachable for real video
-  at the default R=32).
+- impl="gather" (what "auto" resolves to): anchor-vs-candidate DFD via
+  dynamic block gathers.  Exact for any wander distance — the plain
+  reference the volume engine is tested against.
+- impl="volume": precompute the DFD for EVERY offset in [-R, R]^2 as a
+  shift+box-sum cost volume (elementwise work, no gathers), then the walks
+  only do scalar lookups into the volume.  Spatial sharding uses it
+  (gme_tpu/parallel/spatial.py), since a row band's volume needs only a
+  bounded halo.  DFD values are exact f32 integers either way, so results
+  are bit-identical as long as a walk stays within radius R; R is derived
+  exactly for three-step (its total displacement is statically bounded) and
+  configurable for diamond/2D-log (walks past R read +inf and stop —
+  practically unreachable for real video at the default R=32).
 
 Motion-field convention preserved from the reference: shape
 (H//bs, W//bs, 2) int32, channel 0 = column/x shift, channel 1 = row/y shift
 (reference bbme.py:176-177, 338-339, 430-431, 531-532).
 
 All DFD values (sum of abs/squared uint8 differences over blocks of <=16x16)
-are integers below 2**24, exactly representable in float32, so the TPU f32
-path is bit-exact with the reference's numpy float32 sums.
+are integers below 2**24, exactly representable in float32, so the f32
+device path is bit-exact with the reference's numpy float32 sums on any
+backend and in any summation order.
 """
 
 from __future__ import annotations
@@ -49,11 +51,6 @@ import numpy as np
 from jax import lax
 
 from gme_tpu.config import BBMEConfig, DIAMOND, EXHAUSTIVE, MAE, MSE, THREESTEP, TWODLOG
-from gme_tpu.ops.pallas_kernels import (
-    chase_fixpoint,
-    dfd_cost_volume,
-    use_pallas,
-)
 
 # Module-level constants stay NumPy/Python so importing the package never
 # initialises a JAX backend (lets callers pin the platform first).
@@ -160,17 +157,12 @@ def _cost_volume_core(
     prev_crop: jnp.ndarray, curr_pad: jnp.ndarray, bs: int, D: int, pnorm: int
 ) -> jnp.ndarray:
     """(D, D, nbh, nbw) unmasked DFD volume; the window for offset index
-    (i, j) is ``curr_pad[i:i+Hc, j:j+Wc]`` (the Pallas kernel contract,
-    gme_tpu/ops/pallas_kernels.py).  Shared by the full-frame and row-band
-    volume builders; bit-identical across the Pallas and XLA paths."""
+    (i, j) is ``curr_pad[i:i+Hc, j:j+Wc]``.  Shared by the full-frame and
+    row-band volume builders.  The nested lax.scan keeps every intermediate
+    a single (Hc, Wc) tile — no (D, H, W) spill."""
     Hc, Wc = prev_crop.shape
     nbh, nbw = Hc // bs, Wc // bs
     assert curr_pad.shape == (Hc + D - 1, Wc + D - 1)
-    if use_pallas():
-        # Pallas fast path: frames resident in VMEM, VPU diff + MXU box-sum.
-        return dfd_cost_volume(prev_crop, curr_pad, bs, D, pnorm)
-    # XLA fallback: nested lax.scan keeps every intermediate a single
-    # (Hc, Wc) tile — no (D, H, W) spill.
     idx = jnp.arange(D, dtype=jnp.int32)
 
     def dr_step(_, dr):
@@ -196,8 +188,8 @@ def compute_cost_volume(
 ) -> jnp.ndarray:
     """(nbh, nbw, D*D) DFD cost volume for all offsets in [-R, R]^2.
 
-    Built as D^2 frame shifts + per-block box sums — pure elementwise VPU
-    work, no gathers.  Entry layout: k = (dr + R) * D + (dc + R).  Entries
+    Built as D^2 frame shifts + per-block box sums — elementwise work, no
+    gathers.  Entry layout: k = (dr + R) * D + (dc + R).  Entries
     whose candidate block falls outside the frame are +inf (matching the
     reference's skip-on-out-of-frame, bbme.py:157-162).
     """
@@ -313,8 +305,10 @@ def _make_volume_evaluator(
 
 
 def _resolve_impl(search_impl: str) -> str:
+    """The "auto" engine is gather on every backend; "volume" stays
+    selectable (spatial sharding and explicit requests)."""
     if search_impl == "auto":
-        return "volume" if jax.default_backend() == "tpu" else "gather"
+        return "gather"
     if search_impl not in ("gather", "volume"):
         raise ValueError(f"unknown search_impl {search_impl!r}")
     return search_impl
@@ -375,39 +369,23 @@ def exhaustive_search(
         col0[None, :] + offsets[:, None] + bs - 1 <= W - 1
     )  # (D, nbw)
 
-    if use_pallas():
-        # Pallas fast path: offset index k corresponds to offset k - sw, so
-        # the window for k starts at padded row/col k with a top/left pad of
-        # sw and a bottom/right pad of (Hc + sw + bs - 1 - H) >= sw.
-        curr_k = jnp.pad(
-            current.astype(jnp.float32),
-            (
-                (sw, nbh * bs + sw + bs - 1 - H),
-                (sw, nbw * bs + sw + bs - 1 - W),
-            ),
-        )
-        vol = dfd_cost_volume(prev_f, curr_k, bs, D, pnorm_distance)
-        # (D_wc, D_wr, nbh, nbw) — wc is the outer (slowest) loop in the
-        # reference, fixing first-minimum tie-breaking.
-        cost = vol.transpose(1, 0, 2, 3)
-    else:
+    def cost_for_col_offset(wc_idx):
+        wc = offsets[wc_idx]
 
-        def cost_for_col_offset(wc_idx):
-            wc = offsets[wc_idx]
+        def cost_for_row_offset(wr_idx):
+            wr = offsets[wr_idx]
+            win = lax.dynamic_slice(
+                curr_pad, (P + wr, P + wc), (nbh * bs, nbw * bs)
+            )
+            diff = win - prev_f
+            per_px = jnp.abs(diff) if pnorm_distance == MAE else diff * diff
+            return per_px.reshape(nbh, bs, nbw, bs).sum(axis=(1, 3))
 
-            def cost_for_row_offset(wr_idx):
-                wr = offsets[wr_idx]
-                win = lax.dynamic_slice(
-                    curr_pad, (P + wr, P + wc), (nbh * bs, nbw * bs)
-                )
-                diff = win - prev_f
-                per_px = jnp.abs(diff) if pnorm_distance == MAE else diff * diff
-                return per_px.reshape(nbh, bs, nbw, bs).sum(axis=(1, 3))
+        return jax.vmap(cost_for_row_offset)(jnp.arange(D))  # (D, nbh, nbw)
 
-            return jax.vmap(cost_for_row_offset)(jnp.arange(D))  # (D, nbh, nbw)
-
-        # (D_wc, D_wr, nbh, nbw) — wc outer, as in the reference scan order.
-        cost = lax.map(cost_for_col_offset, jnp.arange(D))
+    # (D_wc, D_wr, nbh, nbw) — wc is the outer (slowest) loop in the
+    # reference scan order, fixing first-minimum tie-breaking.
+    cost = lax.map(cost_for_col_offset, jnp.arange(D))
     mask = valid_r[None, :, :, None] & valid_c[:, None, None, :]
     cost = jnp.where(mask, cost, _INF)
 
@@ -730,14 +708,13 @@ def _succ_map_packed(
     `cell` sits at volume offset `o`.  The chase (`diamond_walk_volume`)
     decodes ranks back to offsets with the same clamp arithmetic the
     reference applies per candidate (bbme.py:503-504) — storing 1-byte ranks
-    instead of 4-byte flat offsets quarters the map's HBM footprint, and the
-    chase re-reads the whole map every iteration (measured HBM-bound).
+    instead of 4-byte flat offsets quarters the map's memory footprint, and
+    the chase re-reads the whole map every iteration.
 
     The select-chain builder (`_succ_map_select`) spends ~12 elementwise
     passes over the (cells, D, D) volume per LDSP candidate (boundary
-    selects, cost compare, cost select, successor select) — measured VPU-
-    bound at ~7 ms/pair per pyramid level at 720p.  This builder cuts the
-    per-candidate work to TWO passes:
+    selects, cost compare, cost select, successor select).  This builder
+    cuts the per-candidate work to TWO passes:
 
     1. Build the clamp-extended volume ONCE: Vext[e] for e in [-(R+2), R+2]^2
        equals V[clip(e, lo, hi)] when the clipped offset lies inside the
@@ -751,7 +728,8 @@ def _succ_map_packed(
        Every LDSP candidate is then a statically shifted slice of the packed
        Vext plus k, and the reduction is a plain jnp.minimum tree.
 
-    Bit-identical to `_succ_map_select` (asserted in tests/test_pallas.py).
+    Bit-identical to `_succ_map_select` (asserted in
+    tests/test_cost_volume.py).
     """
     bs, R = block_size, radius
     D = 2 * R + 1
@@ -974,10 +952,10 @@ def diamond_walk_volume(
     """Volume-engine diamond walk as a dense successor map + pointer chase.
 
     The lockstep walk's per-iteration cost is dominated by gathering 9 LDSP
-    candidate costs per block from the cost volume (XLA lowers gathers
-    element-wise on TPU).  Since every candidate cost is just a volume entry
-    at a *statically shifted* offset, the LDSP argmin can be precomputed for
-    EVERY offset densely — pure VPU work over shifted views, no gathers:
+    candidate costs per block from the cost volume.  Since every candidate
+    cost is just a volume entry at a *statically shifted* offset, the LDSP
+    argmin can be precomputed for EVERY offset densely — elementwise work
+    over shifted views, no gathers:
 
         next[block, o] = offset of the first-minimum LDSP candidate at o
 
@@ -1019,67 +997,43 @@ def diamond_walk_volume(
     lo_c = -origins[..., 1]
     hi_c = (W - bs - 1) - origins[..., 1]
 
-    if use_pallas():
-        # Pallas chase: the map chunk stays VMEM-resident across ALL
-        # iterations and each cell chunk exits at ITS convergence (the XLA
-        # loop below re-reads the map from HBM per iteration and runs the
-        # max iteration count over every cell).  Bit-identical
-        # (tests/test_pallas.py).
-        C = int(np.prod(lead))
-        bounds = jnp.stack(
-            [x.reshape(C) for x in (lo_r, hi_r, lo_c, hi_c)]
-            + [jnp.zeros(C, jnp.int32)] * 4,
-            axis=1,
-        )
-        o_flat, touched_flat = chase_fixpoint(
-            rank_map.reshape(C, D * D), bounds, D, R, max_iters
-        )
-        o = o_flat.reshape(lead)
-        touched = touched_flat.reshape(lead)
-    else:
-        ldsp_a = jnp.asarray(_LDSP[:, 0])
-        ldsp_b = jnp.asarray(_LDSP[:, 1])
+    ldsp_a = jnp.asarray(_LDSP[:, 0])
+    ldsp_b = jnp.asarray(_LDSP[:, 1])
 
-        # The chase reads ONE map entry per cell per iteration.  XLA lowers
-        # take_along_axis element-wise on TPU (~70M elem/s — measured 1.6 ms
-        # per iteration on the 14,400-cell dense grid); a masked one-hot sum
-        # is a fused compare+select+reduce sweep over the map instead (pure
-        # VPU, ~8x faster there).  Exact: exactly one lane matches o.
-        o_iota = jax.lax.broadcasted_iota(
-            jnp.int32, lead + (D * D,), len(lead)
+    # The chase reads ONE map entry per cell per iteration, as a masked
+    # one-hot sum: a fused compare+select+reduce sweep over the map.
+    # Exact: exactly one lane matches o.
+    o_iota = jax.lax.broadcasted_iota(jnp.int32, lead + (D * D,), len(lead))
+
+    def _rank_at(o):
+        hit = o[..., None] == o_iota
+        return jnp.sum(
+            jnp.where(hit, rank_map, jnp.int8(0)).astype(jnp.int32), axis=-1
         )
 
-        def _rank_at(o):
-            hit = o[..., None] == o_iota
-            return jnp.sum(
-                jnp.where(hit, rank_map, jnp.int8(0)).astype(jnp.int32),
-                axis=-1,
-            )
+    def body(state):
+        o, _, it, touched = state
+        # Soundness tracking: the successor consulted at `o` could differ
+        # from a larger-radius map only when o sits in the boundary-adjacent
+        # ring (see docstring) — OR over every visited offset.
+        omax = jnp.maximum(jnp.abs(o // D - R), jnp.abs(o % D - R))
+        touched = touched | (omax >= R - 1)
+        k = _rank_at(o)
+        a = jnp.take(ldsp_a, k)
+        b = jnp.take(ldsp_b, k)
+        er = jnp.clip(o // D - R + a, lo_r, hi_r)
+        ec = jnp.clip(o % D - R + b, lo_c, hi_c)
+        nxt = (er + R) * D + (ec + R)
+        return (nxt, jnp.any(nxt != o), it + 1, touched)
 
-        def body(state):
-            o, _, it, touched = state
-            # Soundness tracking: the successor consulted at `o` could
-            # differ from a larger-radius map only when o sits in the
-            # boundary-adjacent ring (see docstring) — OR over every
-            # visited offset.
-            omax = jnp.maximum(jnp.abs(o // D - R), jnp.abs(o % D - R))
-            touched = touched | (omax >= R - 1)
-            k = _rank_at(o)
-            a = jnp.take(ldsp_a, k)
-            b = jnp.take(ldsp_b, k)
-            er = jnp.clip(o // D - R + a, lo_r, hi_r)
-            ec = jnp.clip(o % D - R + b, lo_c, hi_c)
-            nxt = (er + R) * D + (ec + R)
-            return (nxt, jnp.any(nxt != o), it + 1, touched)
+    def cond(state):
+        _, changed, it, _ = state
+        return changed & (it < max_iters)
 
-        def cond(state):
-            _, changed, it, _ = state
-            return changed & (it < max_iters)
-
-        o, _, _, touched = lax.while_loop(
-            cond, body,
-            (o0, jnp.bool_(True), jnp.int32(0), jnp.zeros(lead, dtype=bool)),
-        )
+    o, _, _, touched = lax.while_loop(
+        cond, body,
+        (o0, jnp.bool_(True), jnp.int32(0), jnp.zeros(lead, dtype=bool)),
+    )
 
     match = jnp.stack(
         [origins[..., 0] + o // D - R, origins[..., 1] + o % D - R], axis=-1

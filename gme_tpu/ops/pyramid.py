@@ -1,12 +1,12 @@
 """Gaussian pyramid as an XLA convolution.
 
-Bit-exact TPU-native replacement for the reference's `cv2.pyrDown` loop
+Bit-exact replacement for the reference's `cv2.pyrDown` loop
 (reference utils.py:34-51).  OpenCV's pyrDown on uint8 is: REFLECT_101 border
 padding of 2, separable 5-tap binomial kernel [1,4,6,4,1] (2-D weights sum to
 256), stride-2 decimation starting at index 0, and fixed-point rounding
 `(acc + 128) >> 8`.  All accumulator values are <= 255*256 = 65280, exactly
-representable in float32, so the conv can run on the VPU/MXU in f32 and
-reproduce OpenCV bit-for-bit (verified in tests/test_pyramid.py).
+representable in float32, so the filter can run in f32 and reproduce
+OpenCV bit-for-bit (verified in tests/test_pyramid.py).
 """
 
 from __future__ import annotations
@@ -44,13 +44,14 @@ def _tap_matrix(n_out: int, n_in: int) -> jnp.ndarray:
 def pyrdown(img: jnp.ndarray) -> jnp.ndarray:
     """Downsample one pyramid level, matching cv2.pyrDown on uint8 exactly.
 
-    The separable 5-tap stride-2 filter runs as TWO banded matmuls on the
-    MXU (`S_vᵀ @ padded @ S_h`) rather than `lax.conv` or strided slices:
-    XLA may rewrite small convs with transforms (Winograd-style) whose
-    intermediates are non-integer, and stride-2 slices lower to expensive
-    masked relayouts on TPU.  With HIGHEST precision the dot is exact for
+    The separable 5-tap stride-2 filter runs as TWO banded matmuls
+    (`S_vᵀ @ padded @ S_h`) rather than `lax.conv`: a convolution library
+    may pick a transform-based algorithm (Winograd-style) whose
+    intermediates are non-integer.  Precision must be HIGHEST: a GPU's
+    default f32 matmul is TF32, whose 10-bit mantissa cannot hold pixel
+    values times tap weights exactly.  At HIGHEST the dot is exact for
     integer-valued operands (accumulators <= 255*256 < 2**24), so the
-    fixed-point rounding reproduces OpenCV bit-for-bit
+    fixed-point rounding reproduces OpenCV bit-for-bit on every backend
     (tests/test_pyramid.py).
 
     Args:

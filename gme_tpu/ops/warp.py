@@ -13,22 +13,9 @@ motion.py:289-321).  Boundary semantics are preserved exactly:
 - pixels beyond the field's coverage (bottom/right remainders) keep their
   original value.
 
-Three implementations, bit-identical (asserted in tests/test_warp.py):
-
-- a vectorised per-pixel gather (the portable path — CPU backends lower 2D
-  gathers well; XLA on TPU lowers the arbitrary 2D gather to a slow
-  per-element sequence, measured 14.4 ms/pair at 720p on a v5e);
-- an XLA MXU formulation (`_warped_covered_mxu`, the pre-Pallas TPU path,
-  kept as a verification twin): per-block-column row gather + one-hot
-  column-select matmul — ~300 MB of gathered-row intermediates at 720p,
-  measured ~1.2 ms/pair;
-- the production TPU path, a Pallas kernel
-  (`pallas_kernels.warp_block_field`): the frame stays VMEM-resident and
-  each block row costs two exact one-hot MXU matmuls (row select, then
-  batched column select) — HBM traffic is one frame read + one output
-  write, measured ~0.3 ms/pair at 720p.  Frame values are 0..255 integers —
-  exact in bfloat16, and each one-hot row selects exactly one product, so
-  the matmuls are exact.
+One implementation: a vectorised per-pixel gather
+(`_warped_covered_gather`) — one fused XLA gather, one frame read and one
+write per pair; tests/test_warp.py holds it to a NumPy per-pixel oracle.
 """
 
 from __future__ import annotations
@@ -49,39 +36,6 @@ def _warped_covered_gather(frame, d, bs, cov_h, cov_w):
     return frame[gr, gc]
 
 
-def _warped_covered_mxu(frame, d, bs, cov_h, cov_w):
-    """(cov_h, cov_w) warped pixels via row gather + one-hot column matmul.
-
-    Per block column: the row shift is a gather along axis 0 (fast on TPU),
-    and the column shift selects, for each of the column's `bs` output
-    lanes, one source column — a (nbh, bs_rows, W) x (nbh, W, bs_cols)
-    batched matmul against a 0/1 one-hot built from an iota compare.  Exact
-    for uint8 pixel values (see module docstring)."""
-    H, W = frame.shape
-    nbh, nbw = d.shape[:2]
-    f32 = frame.astype(jnp.float32)
-    dy, dx = d[..., 1], d[..., 0]  # (nbh, nbw) row / column shifts
-    rows_i = jnp.arange(cov_h, dtype=jnp.int32)
-    cols_j = jnp.arange(bs, dtype=jnp.int32)
-    warr = jnp.arange(W, dtype=jnp.int32)
-
-    def per_bc(bc):
-        dyc = jnp.repeat(dy[:, bc], bs)  # (cov_h,) per-pixel row shift
-        src_r = jnp.clip(rows_i - dyc, 0, H - 1)
-        rows_g = f32[src_r, :]  # (cov_h, W) row gather
-        tgt = bc * bs + cols_j[None, :] - dx[:, bc][:, None]  # (nbh, bs)
-        tgtc = jnp.clip(tgt, 0, W - 1)
-        oh = (tgtc[:, None, :] == warr[None, :, None]).astype(jnp.float32)
-        bands = rows_g.reshape(nbh, bs, W)
-        return jnp.einsum(
-            "niw,nwj->nij", bands, oh, preferred_element_type=jnp.float32
-        )  # (nbh, bs, bs)
-
-    outs = jax.vmap(per_bc)(jnp.arange(nbw))  # (nbw, nbh, bs, bs)
-    blocks = outs.transpose(1, 2, 0, 3).reshape(cov_h, cov_w)
-    return blocks.astype(frame.dtype)
-
-
 def compensate_frame(frame: jnp.ndarray, motion_field: jnp.ndarray) -> jnp.ndarray:
     """Warp `frame` by the per-block `motion_field`.
 
@@ -92,11 +46,6 @@ def compensate_frame(frame: jnp.ndarray, motion_field: jnp.ndarray) -> jnp.ndarr
 
     Returns:
         (H, W) uint8 compensated frame.
-
-    Note: the gather/MXU dispatch keys off `jax.default_backend()` at TRACE
-    time, not the device the computation ultimately runs on (e.g.
-    `jit(..., device=cpu)` on a TPU host still picks the MXU path).  Both
-    paths are bit-identical, so a mismatch is performance-only.
     """
     H, W = frame.shape
     nbh, nbw = motion_field.shape[:2]
@@ -104,12 +53,7 @@ def compensate_frame(frame: jnp.ndarray, motion_field: jnp.ndarray) -> jnp.ndarr
     cov_h, cov_w = nbh * bs, nbw * bs  # region covered by the field
 
     d = motion_field.astype(jnp.int32)
-    if jax.default_backend() == "tpu":
-        from gme_tpu.ops.pallas_kernels import warp_block_field
-
-        warped = warp_block_field(frame, d, bs)
-    else:
-        warped = _warped_covered_gather(frame, d, bs, cov_h, cov_w)
+    warped = _warped_covered_gather(frame, d, bs, cov_h, cov_w)
 
     # Reference OOB semantics: a pixel whose source falls outside the frame
     # keeps its original value (motion.py:311-318).

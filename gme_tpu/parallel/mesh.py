@@ -1,9 +1,10 @@
 """Device-mesh construction and multi-host initialisation.
 
 The reference has no distributed code at all (SURVEY.md §2.2); the
-communication layer here is TPU-native by construction: XLA collectives
-(psum / ppermute / all_gather) over a `jax.sharding.Mesh`, lowered onto ICI
-within a slice and DCN across hosts — never a hand-rolled transport.
+communication layer here is XLA collectives (psum / ppermute / all_gather)
+over a `jax.sharding.Mesh`, which XLA hands to NCCL on GPUs — never a
+hand-rolled transport.  The mesh follows the algorithm alone: the cards of
+one host are joined all to all, so no axis order is preferred.
 
 Mesh axes:
 - "data": independent frame pairs / GOPs (embarrassingly parallel — the
@@ -60,13 +61,21 @@ def initialize_multihost(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
+    local_device_ids: Optional[Sequence[int]] = None,
 ) -> None:
-    """Multi-host bring-up (jax.distributed): GOPs shard across hosts over
-    DCN, row-bands within a host over ICI.  No-op on a single process."""
+    """Multi-process bring-up (jax.distributed): GOPs shard across
+    processes.  No-op on a single process.
+
+    `local_device_ids` restricts this process to those local cards.  With
+    several processes on one host, give each its own card (process k ->
+    ``[k]``): a JAX process reserves most of every card it opens, so
+    processes that all open every card run out of memory.  Leave it None
+    for one process per host that drives all of that host's cards."""
     if num_processes is None or num_processes <= 1:
         return
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_device_ids,
     )

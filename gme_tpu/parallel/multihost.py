@@ -1,18 +1,21 @@
 """Multi-host orchestration: GOPs shard across processes.
 
-The reference is single-process (SURVEY.md §2.2); this is the DCN dimension
-of the TPU-native design: independent GOPs (groups of `gop_size` frame
-pairs) shard across hosts, each host decodes the video locally (host-local
-I/O) and runs its GOPs through its own device mesh; per-rank
-`psnr_records.rank<k>.json` files are the work manifest AND the elastic-
-recovery ledger — a restarted host re-processes only its missing pairs
+The reference is single-process (SURVEY.md §2.2); here independent GOPs
+(groups of `gop_size` frame pairs) shard across processes, each process
+decodes the video locally (host-local I/O) and runs its GOPs through its
+own devices; per-rank `psnr_records.rank<k>.json` files are the work
+manifest AND the elastic-recovery ledger — a restarted host re-processes only its missing pairs
 (`resume=True`), and rank 0 merges the manifests into the canonical
 `psnr_records.json` after the completion barrier.
 
-Launch (one command per host):
+Launch one process per card — one command per card, on each host:
 
-    gme-tpu results -v video.mp4 --num-processes 2 --process-id $RANK \\
-        --coordinator host0:9955
+    gme-tpu results -v video.mp4 --num-processes 4 --process-id $RANK \\
+        --coordinator host0:9955 --local-device-ids $LOCAL_CARD
+
+`--local-device-ids` (or, equivalently, `CUDA_VISIBLE_DEVICES=$LOCAL_CARD`)
+keeps each process on its own card; without it every process on a host
+would open every card and run out of memory.
 
 With `coordinator_address=None` the processes run fully uncoordinated
 (still correct — GOPs are disjoint); call `merge_rank_records` once all
@@ -24,7 +27,7 @@ from __future__ import annotations
 import glob
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 from gme_tpu.config import PipelineConfig
 from gme_tpu.parallel.mesh import initialize_multihost
@@ -74,11 +77,12 @@ def process_video_multihost(
     coordinator_address: Optional[str] = None,
     gop_size: int = 16,
     max_pairs: Optional[int] = None,
+    local_device_ids: Optional[Sequence[int]] = None,
 ) -> Dict:
-    """Run this host's GOP shard of the results pipeline.
+    """Run this process's GOP shard of the results pipeline.
 
-    With a coordinator address, brings up `jax.distributed` (collectives
-    ride DCN; the mesh within each host rides ICI), waits at a global
+    With a coordinator address, brings up `jax.distributed` on
+    `local_device_ids` (see `initialize_multihost`), waits at a global
     barrier when done, and rank 0 merges the manifests.  Without one, runs
     uncoordinated — the caller merges.
     """
@@ -86,7 +90,9 @@ def process_video_multihost(
 
     distributed = num_processes > 1 and coordinator_address is not None
     if distributed:
-        initialize_multihost(coordinator_address, num_processes, process_id)
+        initialize_multihost(
+            coordinator_address, num_processes, process_id, local_device_ids
+        )
 
     summary = process_video(
         video_path,

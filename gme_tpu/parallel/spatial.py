@@ -26,9 +26,11 @@ whole hierarchical robust GME (reference motion.py:109-136):
   (displacements are unbounded, reference motion.py:289-321); PSNR's SSE is
   `psum`med.
 
-The searches use the cost-volume engine (`search_impl="volume"` — the TPU
-production path, bit-identical to the gather engine for walks within
-`volume_radius`); single-device comparisons should force the same engine.
+The searches use the cost-volume engine (`search_impl="volume"`,
+bit-identical to the gather engine for walks within `volume_radius`): a
+band's volume needs only a bounded halo of the current frame, where the
+gather walk's unbounded wander would not.  Single-device comparisons
+should force the same engine.
 
 The reference has no parallelism whatsoever (SURVEY.md §2.2) — this design
 comes from the north-star spec, not from reference code.

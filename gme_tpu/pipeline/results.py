@@ -1,6 +1,6 @@
 """The results pipeline — the framework's `train()`-equivalent driver.
 
-TPU-native re-design of reference results.py:14-112: decode the video on a
+Re-design of reference results.py:14-112: decode the video on a
 background thread (streaming prefetch) while running the full per-pair step
 (GME -> affine field -> compensation -> PSNR) as a *batched, jitted* device
 program over many frame pairs at once, instead of the reference's serial

@@ -210,3 +210,17 @@ def test_adaptive_pipeline_bit_parity():
     adaptive = gme_pipeline_batch_adaptive(pb, cb, cfg)
     for k in full:
         assert np.array_equal(np.asarray(adaptive[k]), np.asarray(full[k])), k
+
+
+@pytest.mark.parametrize(
+    "requested,engine",
+    [("auto", "gather"), ("gather", "gather"), ("volume", "volume")],
+)
+def test_search_impl_resolution(requested, engine):
+    """"auto" is the gather engine on every backend; both engines stay
+    selectable by name."""
+    from gme_tpu.ops.bbme import _resolve_impl
+
+    assert _resolve_impl(requested) == engine
+    with pytest.raises(ValueError):
+        _resolve_impl("pallas")

@@ -264,3 +264,20 @@ def test_iter_video_frames_y4m_native_contract(tmp_path, rng):
     else:
         with pytest.raises(RuntimeError):
             list(iter_video_frames(path, native=True))
+
+
+def test_textured_pan_is_seeded_and_pans():
+    """The synthetic clip is reproducible from its seed, and frame i+1 is
+    frame i moved by the pan, up to the +-noise sensor noise on each."""
+    from gme_tpu.io.synthetic import textured_pan
+
+    a = textured_pan(3, 48, 64, pan=(1, 2), seed=5)
+    b = textured_pan(3, 48, 64, pan=(1, 2), seed=5)
+    assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    assert a[0].shape == (48, 64) and a[0].dtype == np.uint8
+    assert a[0].std() > 20  # textured, not flat
+    step = a[1][:-1, :-2].astype(int) - a[0][1:, 2:].astype(int)
+    assert np.abs(step).max() <= 4
+    neg = textured_pan(2, 48, 64, pan=(-1, -2), seed=5)
+    step = neg[1][1:, 2:].astype(int) - neg[0][:-1, :-2].astype(int)
+    assert np.abs(step).max() <= 4

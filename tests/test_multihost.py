@@ -172,3 +172,43 @@ def test_merge_rejects_stale_rank_manifests(tmp_path):
         merge_rank_records(str(d), num_processes=2)
     merged = merge_rank_records(str(d), num_processes=3)
     assert sorted(merged) == ["1", "2", "3"]
+
+
+def test_initialize_multihost_passes_local_device_ids(monkeypatch):
+    """Each process of a multi-card host gets its own card: the ids reach
+    jax.distributed.initialize unchanged."""
+    import jax
+
+    from gme_tpu.parallel.mesh import initialize_multihost
+
+    calls = []
+    monkeypatch.setattr(
+        jax.distributed, "initialize", lambda **kw: calls.append(kw)
+    )
+    initialize_multihost("localhost:9955", 4, 2, local_device_ids=[2])
+    assert calls == [
+        dict(coordinator_address="localhost:9955", num_processes=4,
+             process_id=2, local_device_ids=[2])
+    ]
+    initialize_multihost("localhost:9955", 1, 0, local_device_ids=[0])
+    assert len(calls) == 1  # single process: no bring-up
+
+
+def test_cli_local_device_ids_reach_multihost(monkeypatch, tmp_path):
+    """`--local-device-ids 1,3` parses to [1, 3] and is handed to the
+    multi-process driver."""
+    import gme_tpu.parallel.multihost as mh
+    from gme_tpu import cli
+
+    seen = {}
+
+    def fake(path, **kw):
+        seen.update(kw)
+        return {}
+
+    monkeypatch.setattr(mh, "process_video_multihost", fake)
+    cli.main(["results", "-v", str(tmp_path / "v.y4m"), "-o", str(tmp_path),
+              "--num-processes", "2", "--process-id", "1",
+              "--local-device-ids", "1,3"])
+    assert seen["local_device_ids"] == [1, 3]
+    assert seen["process_id"] == 1 and seen["num_processes"] == 2

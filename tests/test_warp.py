@@ -3,30 +3,43 @@ import jax.numpy as jnp
 import pytest
 
 from gme_tpu.ops.metrics import frame_difference, psnr
-from gme_tpu.ops.warp import (
-    _warped_covered_gather,
-    _warped_covered_mxu,
-    compensate_frame,
-)
+from gme_tpu.ops.warp import _warped_covered_gather, compensate_frame
+
+_WARP_SHAPES = [((64, 96), 16), ((48, 80), 16), ((30, 44), 4), ((33, 47), 8)]
 
 
-@pytest.mark.parametrize(
-    "shape,bs",
-    [((64, 96), 16), ((48, 80), 16), ((30, 44), 4), ((33, 47), 8)],
-)
-def test_warp_mxu_path_matches_gather(rng, shape, bs):
-    """The MXU (one-hot matmul) warp must be bit-identical to the gather
-    path, including partially-out-of-bounds blocks and remainder regions."""
+def _np_warp(frame, mf, clip_only=False):
+    """Per-pixel oracle of reference motion.py:289-321: out[r, c] =
+    frame[r - d1, c - d0] for the block holding (r, c); a source outside the
+    frame keeps the original pixel, and so does the uncovered remainder.
+    With `clip_only`, returns the covered region read at clamped sources."""
+    H, W = frame.shape
+    nbh, nbw = mf.shape[:2]
+    bs = H // nbh
+    out = frame.copy()
+    clipped = np.zeros((nbh * bs, nbw * bs), frame.dtype)
+    for r in range(nbh * bs):
+        for c in range(nbw * bs):
+            d0, d1 = mf[r // bs, c // bs]
+            sr, sc = r - d1, c - d0
+            clipped[r, c] = frame[min(max(sr, 0), H - 1), min(max(sc, 0), W - 1)]
+            if 0 <= sr < H and 0 <= sc < W:
+                out[r, c] = frame[sr, sc]
+    return clipped if clip_only else out
+
+
+@pytest.mark.parametrize("shape,bs", _WARP_SHAPES)
+def test_warp_gather_matches_numpy_oracle(rng, shape, bs):
+    """The per-pixel gather reads clamped sources everywhere — including
+    out-of-frame pixels the validity mask later overrides."""
     H, W = shape
     nbh, nbw = H // bs, W // bs
-    f = jnp.asarray(rng.randint(0, 256, (H, W), np.uint8))
-    d = jnp.asarray(rng.randint(-20, 21, (nbh, nbw, 2), np.int32))
-    cov_h, cov_w = nbh * bs, nbw * bs
-    a = np.array(_warped_covered_gather(f, d, bs, cov_h, cov_w))
-    b = np.array(_warped_covered_mxu(f, d, bs, cov_h, cov_w))
-    # Both paths apply identical row/column clamps, so they are equal
-    # EVERYWHERE — including OOB pixels the validity mask later overrides.
-    assert np.array_equal(a, b)
+    f = rng.randint(0, 256, (H, W), np.uint8)
+    d = rng.randint(-20, 21, (nbh, nbw, 2)).astype(np.int32)
+    got = np.array(
+        _warped_covered_gather(jnp.asarray(f), jnp.asarray(d), bs, nbh * bs, nbw * bs)
+    )
+    assert np.array_equal(got, _np_warp(f, d, clip_only=True))
 
 
 def test_warp_matches_reference_golden(goldens):
@@ -79,42 +92,27 @@ def test_frame_difference(rng):
     assert np.array_equal(d, np.abs(a.astype(int) - b.astype(int)).astype(np.uint8))
 
 
-@pytest.mark.parametrize(
-    "shape,bs",
-    [((64, 96), 16), ((48, 80), 16), ((30, 44), 4), ((33, 47), 8)],
-)
-def test_warp_pallas_kernel_matches_gather(rng, shape, bs):
-    """The Pallas warp kernel (two one-hot MXU matmuls per block row, the
-    TPU production path) is bit-identical to the gather formulation —
-    including clipped-source pixels the validity mask later overrides."""
-    from gme_tpu.ops.pallas_kernels import warp_block_field
-
+@pytest.mark.parametrize("shape,bs", _WARP_SHAPES)
+def test_compensate_frame_matches_numpy_oracle(rng, shape, bs):
+    """compensate_frame == the per-pixel oracle, including partially
+    out-of-frame blocks and the uncovered bottom/right remainders."""
     H, W = shape
     nbh, nbw = H // bs, W // bs
-    f = jnp.asarray(rng.randint(0, 256, (H, W), np.uint8))
-    d = jnp.asarray(rng.randint(-20, 21, (nbh, nbw, 2), np.int32))
-    cov_h, cov_w = nbh * bs, nbw * bs
-    a = np.array(_warped_covered_gather(f, d, bs, cov_h, cov_w))
-    b = np.array(warp_block_field(f, d, bs, interpret=True))
-    assert b.shape == (cov_h, cov_w) and b.dtype == np.uint8
-    assert np.array_equal(a, b)
+    f = rng.randint(0, 256, (H, W), np.uint8)
+    d = rng.randint(-20, 21, (nbh, nbw, 2)).astype(np.int32)
+    got = np.array(compensate_frame(jnp.asarray(f), jnp.asarray(d)))
+    assert got.shape == (H, W) and got.dtype == np.uint8
+    assert np.array_equal(got, _np_warp(f, d))
 
 
-def test_warp_pallas_kernel_batched(rng):
+def test_compensate_frame_batched(rng):
     """vmap over a batch of (frame, field) pairs — the pipeline's usage."""
     import jax
 
-    from gme_tpu.ops.pallas_kernels import warp_block_field
-
     H, W, bs = 32, 48, 8
     nbh, nbw = H // bs, W // bs
-    fb = jnp.asarray(rng.randint(0, 256, (3, H, W), np.uint8))
-    db = jnp.asarray(rng.randint(-10, 11, (3, nbh, nbw, 2), np.int32))
-    out = np.array(
-        jax.vmap(lambda f, d: warp_block_field(f, d, bs, interpret=True))(fb, db)
-    )
+    fb = rng.randint(0, 256, (3, H, W), np.uint8)
+    db = rng.randint(-10, 11, (3, nbh, nbw, 2)).astype(np.int32)
+    out = np.array(jax.vmap(compensate_frame)(jnp.asarray(fb), jnp.asarray(db)))
     for i in range(3):
-        ref = np.array(
-            _warped_covered_gather(fb[i], db[i], bs, nbh * bs, nbw * bs)
-        )
-        assert np.array_equal(out[i], ref)
+        assert np.array_equal(out[i], _np_warp(fb[i], db[i]))
